@@ -1,14 +1,11 @@
 """Scaling measurement for the sharded VBHEM EM loop (BASELINE.json's
 ">=80% samples/s scaling efficiency from 1 host to N>=2 hosts" target).
 
-Only one physical TPU chip is reachable from this box, so true
-multi-chip scaling cannot be measured here; what CAN be measured is the
-cost the sharded program adds over the unsharded one at the same total
-problem size — partition overhead + the psum collectives — on a virtual
-N-device CPU mesh (the same mesh the driver's dryrun uses).  On real
-hardware those collectives ride ICI; the virtual-mesh number is the
-upper bound on the non-communication overhead of the SPMD program
-structure.
+What this measures is the cost the sharded program adds over the
+unsharded one at the same total problem size — partition overhead +
+the psum collectives — on a virtual N-device CPU mesh.  It says nothing
+of device times: the virtual-mesh number bounds the overhead of the
+SPMD program structure, not scaling on GPUs.
 
 Reported: wall-clock of `n_iters` EM iterations (while_loop with
 min_diff=0 so it never early-stops) at fixed TOTAL Kb, run (a) on one
@@ -76,7 +73,7 @@ def main():
         "t_unsharded_s": round(t1, 4), "t_sharded_s": round(t_n, 4),
         "efficiency": round(eff, 4),
         "note": "virtual CPU mesh; same TOTAL work, so 1.0 = sharding "
-                "adds no overhead (collectives ride ICI on hardware)",
+                "adds no overhead",
     }))
 
 

@@ -1,6 +1,6 @@
 """End-to-end demo: per-subject VBEM -> VBHEM clustering -> plots.
 
-The TPU-native equivalent of `demo/vbdemo_face.m`: learn an HMM per
+The JAX equivalent of `demo/vbdemo_face.m`: learn an HMM per
 subject from fixation sequences with model selection over S=1..3 and
 hyperparameter learning, cluster the subjects' HMMs with VBHEM over
 K=1..5, prune empty clusters, and plot the group models.

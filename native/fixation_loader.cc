@@ -4,7 +4,7 @@
 // toolbox (`src/util/read_xls_fixations.m`): parses a CSV with columns
 // SubjectID, TrialID, FixX, FixY, [FixD] (case-insensitive, any column
 // order) and packs the ragged per-(subject, trial) sequences into the
-// dense padded layout the TPU engines consume ([N, T_max, D] + lengths),
+// dense padded layout the JAX engines consume ([N, T_max, D] + lengths),
 // in one pass and without per-row Python/pandas overhead.  Exposed via a
 // plain C ABI consumed by ctypes (vbhem_tpu/utils/native_io.py), which
 // falls back to the pandas reader when the shared library is absent.

@@ -120,9 +120,22 @@ def test_expected_log_gauss_matches_direct():
                 np.testing.assert_allclose(got[i, tt, kk], want, rtol=1e-8)
 
 
+def _fb_problem(rng, n, t_max, k):
+    lengths = rng.integers(min(2, t_max), t_max + 1, size=n)
+    lengths[0] = t_max
+    mask = np.arange(t_max)[None, :] < lengths[:, None]
+    log_rho = rng.normal(size=(n, t_max, k)) * 2.0
+    log_pz1 = np.log(rng.dirichlet(np.ones(k))) - 0.1
+    log_trans = np.log(rng.dirichlet(np.ones(k), size=k)) - 0.1
+    return (jnp.asarray(log_pz1, jnp.float32),
+            jnp.asarray(log_trans, jnp.float32),
+            jnp.asarray(log_rho, jnp.float32), jnp.asarray(mask))
+
+
 def test_fb_pallas_matches_xla():
-    """Pallas kernel (interpret mode on CPU) vs the XLA scan path —
-    the MEX-vs-MATLAB dual-path discipline (`vbhmm_fb.m:179-192`)."""
+    """Pallas kernel (Triton route, interpret mode on CPU) vs the XLA
+    scan path — the MEX-vs-MATLAB dual-path discipline
+    (`vbhmm_fb.m:179-192`)."""
     from vbhem_tpu.ops.fb_pallas import forward_backward_pallas
     rng = np.random.default_rng(3)
     n, t_max, k = 7, 9, 3
@@ -146,10 +159,33 @@ def test_fb_pallas_matches_xla():
                                np.asarray(want.phi_norm), rtol=2e-6)
 
 
+@pytest.mark.parametrize("n,t_max,k", [
+    (130, 5, 2),      # more sequences than one block (padded lanes)
+    (3, 1, 2),        # a single time step: no recursion at all
+    (9, 12, 1),       # one state
+])
+def test_fb_pallas_edge_shapes(n, t_max, k):
+    """Kernel vs XLA path at the edges of the kernel's shapes.  phi_norm
+    is a sum of T float32 logs that may sit near zero, so it is held to
+    an absolute bound of a few float32 ulps per step."""
+    from vbhem_tpu.ops.fb_pallas import forward_backward_pallas
+    args = _fb_problem(np.random.default_rng(n), n, t_max, k)
+    want = forward_backward(*args)
+    got = forward_backward_pallas(*args, interpret=True)
+    np.testing.assert_allclose(np.asarray(got.gamma),
+                               np.asarray(want.gamma), atol=2e-6)
+    np.testing.assert_allclose(np.asarray(got.xi_sum),
+                               np.asarray(want.xi_sum), atol=2e-5)
+    np.testing.assert_allclose(np.asarray(got.phi_norm),
+                               np.asarray(want.phi_norm), rtol=2e-6,
+                               atol=1e-6 * t_max)
+
+
 def test_fb_pallas_groups_and_vmap_fold():
-    """Per-sequence parameters (groups mode) + custom_vmap fold into N
-    (interpret mode) vs the XLA path."""
-    from vbhem_tpu.ops.fb_pallas import _pallas_vmappable
+    """Per-sequence parameters (groups mode) + the custom_vmap fold of
+    the trial axis into N (interpret mode) vs the XLA path: one kernel
+    call for all trials."""
+    from vbhem_tpu.ops.fb_pallas import forward_backward_pallas
     rng = np.random.default_rng(11)
     b, n, t_max, k = 3, 5, 6, 2
     lengths = rng.integers(2, t_max + 1, size=n); lengths[0] = t_max
@@ -161,9 +197,10 @@ def test_fb_pallas_groups_and_vmap_fold():
     log_trans = jnp.asarray(
         np.log(rng.dirichlet(np.ones(k), size=(b, n, k))) - 0.1, jnp.float32)
 
-    fp = _pallas_vmappable(interpret=True)
-    got = jax.vmap(fp, in_axes=(0, 0, 0, None))(
-        log_pz1, log_trans, log_rho, mask)
+    def fp(p, t, r):
+        return forward_backward_pallas(p, t, r, mask, interpret=True)
+
+    got = jax.vmap(fp)(log_pz1, log_trans, log_rho)
     want = jax.vmap(lambda p, t, r: forward_backward(p, t, r, mask))(
         log_pz1, log_trans, log_rho)
     np.testing.assert_allclose(np.asarray(got.gamma),
@@ -172,6 +209,33 @@ def test_fb_pallas_groups_and_vmap_fold():
                                np.asarray(want.xi_sum), atol=2e-5)
     np.testing.assert_allclose(np.asarray(got.phi_norm),
                                np.asarray(want.phi_norm), rtol=2e-6)
+    jaxpr = jax.make_jaxpr(jax.vmap(fp))(log_pz1, log_trans, log_rho)
+    assert str(jaxpr).count("pallas_call") == 1
+
+
+@pytest.mark.parametrize("backend,dtype,k,want", [
+    ("gpu", jnp.float32, 2, True),
+    ("gpu", jnp.float32, 8, True),          # K_MAX
+    ("gpu", jnp.float32, 9, False),
+    ("cpu", jnp.float32, 2, False),         # never on the CPU
+    ("gpu", jnp.float64, 2, False),         # never for f64
+])
+def test_fb_use_kernel(backend, dtype, k, want):
+    from vbhem_tpu.ops import fb_pallas
+    assert k != fb_pallas.K_MAX or want
+    assert fb_pallas.use_kernel(backend, dtype, k) is want
+
+
+def test_fb_auto_takes_xla_path_on_cpu(setup):
+    from vbhem_tpu.ops.fb_pallas import forward_backward_auto
+    log_pz1, log_trans, log_rho, lengths = setup
+    mask = np.arange(log_rho.shape[1])[None, :] < lengths[:, None]
+    args = tuple(map(jnp.asarray, (log_pz1, log_trans, log_rho, mask)))
+    assert "pallas_call" not in str(
+        jax.make_jaxpr(forward_backward_auto)(*args))
+    got, want = forward_backward_auto(*args), forward_backward(*args)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
 def test_fb_assoc_matches_sequential():

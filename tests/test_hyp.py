@@ -150,7 +150,7 @@ def test_lbfgs_box_respects_bounds():
 
 
 def test_optimize_hyps_joint_matches_batched():
-    """The host-outer-loop joint optimizer (TPU fallback) must reach the
+    """The host-outer-loop joint optimizer (the GPU path) must reach the
     same separable optima as the in-graph vmapped L-BFGS on a smooth
     per-lane objective."""
     import jax
@@ -186,7 +186,7 @@ def test_optimize_hyps_joint_matches_batched():
 def test_optimize_hyps_batched_tail_chunk_smaller_than_pad():
     """Regression: a tail lane-chunk SMALLER than its pad amount used to
     be emptied by the unpad slice (200 lanes at chunk 64 returned 192
-    results and crashed the VBEM bank hyp stage on TPU)."""
+    results and crashed the VBEM bank hyp stage on the accelerator)."""
     import jax.numpy as jnp
     import numpy as np
     from vbhem_tpu import hyp as hypmod

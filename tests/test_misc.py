@@ -293,3 +293,14 @@ def test_inv_logdet_small_d_closed_form():
         np.testing.assert_allclose(got_inv, want_inv, rtol=2e-6,
                                    atol=1e-10 * np.abs(want_inv).max())
         np.testing.assert_allclose(got_ld, want_ld, rtol=1e-8, atol=1e-8)
+
+
+def test_compile_cache_dir():
+    """The persistent compilation cache honours JAX_COMPILATION_CACHE_DIR
+    and otherwise sits at the fixed `.jax_cache/` in the checkout."""
+    import os
+    import vbhem_tpu
+    assert vbhem_tpu.compile_cache_dir(
+        {"JAX_COMPILATION_CACHE_DIR": "/some/cache"}) == "/some/cache"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert vbhem_tpu.compile_cache_dir({}) == os.path.join(repo, ".jax_cache")

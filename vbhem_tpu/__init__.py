@@ -1,5 +1,5 @@
-"""vbhem_tpu — TPU-native clustering of hidden Markov models with
-variational Bayesian hierarchical EM.
+"""vbhem_tpu — clustering of hidden Markov models with variational
+Bayesian hierarchical EM, in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 reference MATLAB toolbox "Clustering Hidden Markov Models with
@@ -10,31 +10,36 @@ PPK-SC / CCFD baselines, and the evaluation metrics.
 
 __version__ = "0.1.0"
 
+import os as _os
+
 import jax as _jax
 
-# On TPU, the default matmul precision truncates f32 operands to bf16 on
-# the MXU, which corrupts the FB/pair recursions and ELBOs at the 1e-2
-# level (measured vs the f64 oracle).  The matmuls in these models are
-# tiny, so full f32 precision costs nothing; users can override after
-# import if they explicitly want bf16 compute.
+# The default matmul precision lets XLA run float32 products in
+# reduced precision (TF32 on the GPU), which corrupts the FB/pair
+# recursions and ELBOs at the 1e-2 level (measured against the f64
+# oracle).  The products in these models are tiny, so full float32
+# precision costs nothing; users can override after import.
 _jax.config.update("jax_default_matmul_precision", "highest")
+
+
+def compile_cache_dir(environ=_os.environ) -> str:
+    """Where the persistent compilation cache lives:
+    ``JAX_COMPILATION_CACHE_DIR`` when set, else ``.jax_cache/`` at the
+    root of the checkout (a fixed path, so later runs hit the cache)."""
+    return environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache")
+
 
 # Persistent compilation cache: the (K,S) grid sweep compiles one
 # program per cell; caching them to disk makes reruns (and the
 # experiment runner's resume path) skip straight to execution.  Opt out
-# with VBHEM_TPU_NO_COMPILE_CACHE=1.
-import os as _os
-
+# with VBHEM_TPU_NO_COMPILE_CACHE=1 (the test suite does: its parallel
+# workers would race on the entries).
 if not _os.environ.get("VBHEM_TPU_NO_COMPILE_CACHE"):
-    _cache_dir = _os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR",
-        _os.path.join(_os.path.expanduser("~"), ".cache", "vbhem_tpu_xla"))
-    try:
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # older jax without the knobs
-        pass
+    _jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-from .config import HEMConfig, VBConfig, VBHEMConfig  # noqa: F401
-from .containers import (H3M, HMM, HMMPosterior, NIW, SeqBatch,  # noqa: F401
+from .config import HEMConfig, VBConfig, VBHEMConfig  # noqa: F401,E402
+from .containers import (H3M, HMM, HMMPosterior, NIW, SeqBatch,  # noqa: F401,E402
                          VBHMMResult, pack_sequences)

@@ -70,7 +70,6 @@ class VBConfig:
     # (`vbhmm_learn.m:159,417,600` keep_suboptimal_hmms)
     keep_suboptimal: bool = False
     verbose: int = 1
-    use_pallas: bool = True       # Pallas FB kernel when on TPU (MEX analog)
 
     def default_mu0(self, dim: int) -> Tuple[float, ...]:
         """Image-center default for eye-fixation data (vbhmm_learn.m:261-269)."""
@@ -121,7 +120,6 @@ class VBHEMConfig:
     remove_empty: bool = True
     covar_type: str = "full"      # full | diag emission covariances
     verbose: int = 1
-    use_pallas: bool = True
 
     def default_m0(self, dim: int) -> Tuple[float, ...]:
         if self.m0 is not None:

@@ -10,7 +10,7 @@ aggregation of `syn_evluate.m` / `evaluate_vbhem_jounarl.m:450-655`
 per method/criterion).
 
 Checkpoints are one pickle per (repeat, stage) in ``outdir``; a rerun
-with the same outdir resumes after the last completed stage — the TPU
+with the same outdir resumes after the last completed stage — the
 equivalent of the reference's save/load `.mat` discipline.
 """
 from __future__ import annotations
@@ -162,7 +162,7 @@ def run_repeat(repeat: int, outdir: str,
     want = jnp.float32 if dtype == "f32" else jnp.float64
     if ds.batches[0].x.dtype != want:
         # cast checkpointed data to the requested compute precision
-        # (f32 for TPU runs; datasets are generated/stored in f64)
+        # (f32 on the GPU; datasets are generated/stored in f64)
         ds = syn.SyntheticDataset(
             batches=[type(b)(x=jnp.asarray(np.asarray(b.x), want),
                              lengths=b.lengths) for b in ds.batches],

@@ -169,7 +169,7 @@ def _vhem_expected_ll(res, nv: float) -> float:
       sum_ij Z_ij (log omega_j - log Z_ij + Nv * L_elbo_ij)
     with omega_j = (1/Kb) sum_i Z_ij."""
     # host-side in f64: the 1e-50 / 1e-300 floors underflow to 0 in f32
-    # (log -> -inf, 0 * -inf -> NaN) when the models were fit on TPU
+    # (log -> -inf, 0 * -inf -> NaN) when the models were fit in float32
     z = np.asarray(res.z, np.float64)
     ll_elbo = np.asarray(res.ll_elbo, np.float64)
     omega = z.sum(axis=0) / z.shape[0]

@@ -8,7 +8,7 @@ transformed hyp vector is optimized with BFGS where each function eval
 re-runs EM for every (subject, kept-init) pair, scores each subject by
 its best solution, and sums over subjects.
 
-TPU-first delta: the (subject x kept-init) EM runs are one vmapped
+Design delta: the (subject x kept-init) EM runs are one vmapped
 batch (the reference flattens them into one `parfor`, `:347-457`);
 requires homogeneous sequence counts per subject (pad sequences to a
 common T; heterogeneous N falls back to the slower per-subject path).
@@ -31,7 +31,7 @@ def learn_bank(key: jax.Array, batches: Sequence[SeqBatch], k: int,
     """Learn one HMM per subject with the WHOLE bank batched: the
     subject x trial restarts are one vmapped program, and (with
     ``config.learn_hyps``) every subject's uniqueLL survivors are hyp-
-    optimized together in one vmapped L-BFGS — the TPU-native form of
+    optimized together in one vmapped L-BFGS — the vectorised form of
     `vbhmm_learn_batch.m:56-78` (a parfor of per-subject learns, each
     with its own hyp optimization, `vbhmm_learn.m:498-552`).
 

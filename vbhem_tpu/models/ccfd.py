@@ -62,7 +62,7 @@ def skl_distance_matrix(key, hmms: Sequence[HMM],
     d(i,j) = 0.5 (KL(i||j) + KL(j||i)) estimated on each HMM's own data
     (or Monte-Carlo samples).
 
-    TPU-native form: every KL is a difference of mean log-likelihoods,
+    Vectorised form: every KL is a difference of mean log-likelihoods,
     so the whole matrix reduces to ONE [N_data x N_model] mean-loglik
     table LLm, d(i,j) = 0.5 (LLm[i,i]-LLm[i,j] + LLm[j,j]-LLm[j,i]),
     computed with a double vmap over the state-padded bank in one

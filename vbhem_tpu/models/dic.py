@@ -14,8 +14,7 @@ import numpy as np
 from jax.scipy.special import digamma
 
 from ..containers import H3M
-from ..ops.pair_estep import expected_pair_ll_point
-from ..ops.pair_estep_pallas import pair_bwd_fwd_auto
+from ..ops.pair_estep import expected_pair_ll_point, pair_bwd_fwd
 from ..utils.numeric import e_log_det_lambda, e_log_dirichlet, logsumexp
 from .vbhem import VBHEMResult
 
@@ -80,7 +79,7 @@ def dic(base: H3M, res: VBHEMResult, tau: int, lambda0: float = 1.0,
                                  reduced.hmm.mean, reduced.hmm.cov)
     log_pi_r = jnp.log(jnp.maximum(reduced.hmm.prior, 1e-300))
     log_a_r = jnp.log(jnp.maximum(reduced.hmm.trans, 1e-300))
-    pair = pair_bwd_fwd_auto(base.hmm.prior, base.hmm.trans, log_pi_r, log_a_r,
+    pair = pair_bwd_fwd(base.hmm.prior, base.hmm.trans, log_pi_r, log_a_r,
                         ell, tau)
     log_z = jnp.log(jnp.maximum(reduced.omega, 1e-300))[None, :] \
         + ni * pair.ll_elbo

@@ -97,7 +97,7 @@ def gram_matrix(hmms: Sequence[HMM], t: int = DEFAULT_T) -> np.ndarray:
     identity covariance): a padded state contributes exactly 0 to every
     `sep` update because its prior weight and incoming transition mass
     are both zero, so the padded kernel equals the ragged one.  The full
-    N x N pair grid is then a double vmap — the TPU-native form of the
+    N x N pair grid is then a double vmap — the vectorised form of the
     reference's `for n2=n1:N` loop (`ppk_sc.m:16-22`).
     """
     from .vbhem import h3m_from_hmms

@@ -1,6 +1,6 @@
 """Float64 NumPy re-evaluation of the VBHEM lower bound.
 
-TPU compute runs in float32; model selection compares per-(K,S)-cell
+Device compute runs in float32; model selection compares per-(K,S)-cell
 ELBOs whose legitimate differences can be a few hundred nats out of
 ~1e6 — and an f32-evaluated bound after aggressive hyperparameter
 optimization was observed to carry a +21k-nat phantom for specific
@@ -8,8 +8,8 @@ cells (RESULTS.md round-4), silently corrupting the (K,S) choice.
 This module recomputes the EXACT 10-term bound (`vbhemh3m_lb.m:88-186`)
 plus the hierarchical backward recursion for the data term
 (`vbhem_hmm_bwd_fwd_fast.m:166-257`, LL only) in pure NumPy float64 —
-independent of JAX's x64 flag, so it works on the host even inside a
-TPU-pinned process.  It doubles as an independent oracle for the JAX
+independent of JAX's x64 flag, so it works on the host even in a
+process that computes in float32 on the GPU.  It doubles as an independent oracle for the JAX
 implementation (tests/test_rescore.py asserts 1e-9-level agreement
 with `models.vbhem.elbo` in f64).
 """

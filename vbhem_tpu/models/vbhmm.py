@@ -8,7 +8,7 @@ Pipeline parity map (reference file -> function here):
   * `vbhmm_em_lb.m`    -> :func:`elbo` (8 Bishop-ch.10 terms)
   * `vbhmm_init.m`     -> :func:`init_from_gmm` / :func:`random_init`
 
-TPU-first design deltas: restarts are a vmapped leading axis instead of
+Design deltas: restarts are a vmapped leading axis instead of
 a `parfor` loop; sequences are a dense masked batch; the EM loop is a
 `lax.while_loop` so the whole fit is one compiled program.
 """

@@ -30,8 +30,8 @@ import jax.numpy as jnp
 
 from ..config import HEMConfig
 from ..containers import H3M, HMM
-from ..ops.pair_estep import PairStats, expected_pair_ll_point
-from ..ops.pair_estep_pallas import pair_bwd_fwd_auto
+from ..ops.pair_estep import (PairStats, expected_pair_ll_point,
+                              pair_bwd_fwd)
 from ..utils.numeric import logsumexp, sym, tiny
 
 
@@ -70,8 +70,8 @@ def e_step(base: H3M, reduced: H3M, tau: int,
         ell = ell / smooth
     log_pi = jnp.log(jnp.maximum(reduced.hmm.prior, 1e-300))
     log_a = jnp.log(jnp.maximum(reduced.hmm.trans, 1e-300))
-    return pair_bwd_fwd_auto(base.hmm.prior, base.hmm.trans, log_pi, log_a,
-                        ell, tau)
+    return pair_bwd_fwd(base.hmm.prior, base.hmm.trans, log_pi, log_a, ell,
+                        tau)
 
 
 def m_step(base: H3M, pair: PairStats, z: jnp.ndarray,

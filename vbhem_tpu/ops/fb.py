@@ -1,11 +1,13 @@
 """Masked, batched scaled forward-backward for the VBEM E-step.
 
-TPU-native replacement for the reference's C MEX kernel
+XLA replacement for the reference's C MEX kernel
 `src/hmm/vbhmm_fb_mex.c` (I/O contract at :6-25) and its MATLAB mirror
 `src/hmm/vbhmm_fb.m:201-379`.  Instead of looping sequences in C, the
 whole batch advances together: the scan carries ``alpha_hat`` of shape
-[N, K], so each time step is one [N,K]x[K,K] matmul that XLA maps onto
-the MXU, and the T-loop is a single fused `lax.scan`.
+[N, K], so each time step is one batched [N,K]x[K,K] product, and the
+T-loop is a single `lax.scan`.  On the GPU in float32 the fused kernel
+of :mod:`.fb_pallas` serves the E-step instead; this path is its
+reference.
 
 Numerical conventions copied from the reference (required for ELBO
 parity):

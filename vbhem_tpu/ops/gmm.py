@@ -217,7 +217,7 @@ def mix_hier_em(key: jax.Array, mean: jnp.ndarray, cov: jnp.ndarray,
     """Vasconcelos mixture-hierarchies EM: reduce a pooled bank of P
     Gaussians to a T-component GMM using virtual samples.
 
-    TPU-native replacement for
+    Vectorised JAX replacement for
     `src/compare_mtds/hem/gmm/GMM_MixHierEM.m` (E-step log-posterior
     `:113-165`, M-step `:179-199`), used by the 'gmmNew' initializers of
     both VHEM (`initialize_hem_h3m_c.m:276-494`) and VBHEM

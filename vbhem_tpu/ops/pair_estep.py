@@ -1,7 +1,7 @@
 """Hierarchical backward/forward recursions over virtual samples — the
 VBHEM/VHEM E-step over all (base i, reduced j) pairs.
 
-TPU-native replacement for the reference C kernels
+XLA replacement for the reference C kernels
 `src/vbhem/vbhem_hmm_bwd_fwd_mex.c` (variational flavor; MATLAB mirror
 `vbhem_hmm_bwd_fwd_fast.m`) and
 `src/compare_mtds/hem/vhem_h3m/hem_hmm_bwd_fwd_mex.c` (point-estimate

@@ -10,11 +10,14 @@ kernel.  Here the device mesh carries both axes (SURVEY.md section 5
     final argmax.
   * ``base``  axis — the Kb base-HMM bank is sharded for pod-scale
     problems; per-iteration sufficient statistics (Nj, Nj_rho*, y_bar,
-    S_plus_C) and the ELBO terms reduce with `psum` over ICI (see the
-    ``axis_name`` plumbing in :mod:`..models.vbhem`).
+    S_plus_C) and the ELBO terms reduce with `psum` across devices (see
+    the ``axis_name`` plumbing in :mod:`..models.vbhem`).  Every device
+    reaches every other at the same rate (NVLink, all to all), so the
+    mesh follows the algorithm alone.
 
 Everything below builds a single jitted program with `shard_map`, so
-XLA schedules the collectives; nothing here talks NCCL/MPI.
+XLA schedules the collectives (NCCL on the GPU); nothing here calls a
+collective library directly.
 """
 from __future__ import annotations
 
@@ -27,11 +30,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..containers import H3M, H3MPosterior
 from ..models import vbhem
-
-try:  # jax>=0.6 stable API
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def make_mesh(n_trial: int, n_base: int, devices=None) -> Mesh:
@@ -126,15 +125,14 @@ def sharded_vbhem_em(mesh: Mesh, base: H3M, posts: H3MPosterior,
     """The FULL VBHEM EM loop (``lax.while_loop`` to convergence) under
     shard_map: trials sharded over the 'trial' axis, the Kb base bank
     sharded over 'base'.  Per-iteration sufficient statistics and the
-    ELBO reduce with psum over 'base' (ICI on hardware); the posterior
-    stays replicated so the convergence predicate is uniform across
-    devices.  ``posts`` carries a leading trials axis (divisible by the
-    'trial' mesh axis).
+    ELBO reduce with psum over 'base'; the posterior stays replicated
+    so the convergence predicate is uniform across devices.  ``posts``
+    carries a leading trials axis (divisible by the 'trial' mesh axis).
 
-    This is the pod-scale training loop of BASELINE.json's north star
-    ("10k+ input HMMs ... sharded across multi-host TPU slice with
-    all-reduced sufficient stats") — the reference has no analog; its
-    base axis is serial inside one MEX call (`vbhem_h3m_c_step_fc.m:175`).
+    This is the large-bank training loop of BASELINE.json's north star
+    ("10k+ input HMMs" with all-reduced sufficient statistics) — the
+    reference has no analog; its base axis is serial inside one MEX
+    call (`vbhem_h3m_c_step_fc.m:175`).
 
     Returns the vmapped :class:`..models.vbhem.VBHEMState` with a
     leading trials axis (hat_Z and ll_elbo laid out [trial, base-shard]).
@@ -154,7 +152,7 @@ def sharded_fit_trials(mesh: Mesh, base: H3M, kr: int, sr: int,
                        config, hyps: vbhem.VBHEMHyps, key,
                        initmode: Optional[str] = None):
     """Full restart-trial fit with the trials axis sharded over the
-    'trial' mesh axis and the base bank replicated — the TPU-native form
+    'trial' mesh axis and the base bank replicated — the vectorised form
     of the reference's `parfor it=1:trials` (`vbhem_h3m_c.m:28`):
     embarrassingly parallel, no communication until the final argmax.
 
@@ -190,7 +188,7 @@ def sharded_grid_sweep(mesh: Mesh, base: H3M, ks, ss, config,
     """The single-program padded (K,S) sweep with the TRIALS axis laid
     out over the 'trial' mesh axis (cells replicated in the program's
     leading axis, trials device-parallel).  One compile for the entire
-    model-selection grid across the whole mesh — the TPU-native form of
+    model-selection grid across the whole mesh — the vectorised form of
     the reference's nested grid recursion + parfor
     (`vbhem_h3m_cluster.m:261-354`, `vbhem_h3m_c.m:28`).
 

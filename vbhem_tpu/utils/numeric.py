@@ -5,7 +5,7 @@ These replace the reference toolbox's scattered numeric helpers
 blocks in `src/hmm/vbhmm_fb.m:63-93`, and the Wishart/Dirichlet
 normalizer constants in `src/hmm/vbhmm_em_lb.m:74-118`) with batched,
 jit-friendly JAX equivalents.  Everything is dtype-polymorphic: float64
-for CPU parity tests, float32/bfloat16 on TPU.
+for CPU parity tests, float32 on the GPU.
 """
 from __future__ import annotations
 
@@ -116,11 +116,11 @@ def inv_psd(a: jnp.ndarray) -> jnp.ndarray:
     """Inverse of a symmetric positive-definite matrix.
 
     D <= 3 uses the closed-form cofactor inverse: the model family's
-    emission dims are tiny (D=2 fixations), and on TPU a batched
-    Cholesky of [..., 2, 2] lowers to unfusable loop kernels whose
-    launch overhead dominates the EM iteration's Kb-independent cost;
-    the cofactor form is pure elementwise arithmetic that XLA fuses
-    into the surrounding chain.  Larger D falls back to Cholesky."""
+    emission dims are tiny (D=2 fixations), and a batched Cholesky of
+    [..., 2, 2] lowers to separate loop kernels whose launch overhead
+    can dominate the EM iteration's Kb-independent cost; the cofactor
+    form is pure elementwise arithmetic that XLA fuses into the
+    surrounding chain.  Larger D falls back to Cholesky."""
     d = a.shape[-1]
     if d == 1:
         return 1.0 / a
