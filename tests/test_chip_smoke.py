@@ -33,14 +33,10 @@ def test_device_phase_refuses_cpu_in_process():
 
 
 def test_kernel_phase_tiny(capsys):
-    shapes = chip_smoke.KernelShapes(
-        bench_kb=40, bench_kr=3, bench_tau=4, proto_kb=5, proto_kr=3,
-        proto_sr=4, proto_tau=6, proto_lanes=3, fb_subjects=2, fb_trials=3,
-        fb_seqs=4, fb_t=7, fb_k=3)
-    chip_smoke.phase_kernels("cpu (interpret)", shapes, interpret=True,
-                             reps=1)
+    chip_smoke.phase_kernels("cpu (interpret)", n_subj=2, n_trials=3,
+                             n_seqs=4, t=7, k=3, interpret=True, reps=1)
     out = capsys.readouterr().out
-    assert out.count("max_rel_err vs float64") == 3
+    assert out.count("max_rel_err vs float64") == 1
 
 
 def test_main_path_phase_tiny(tmp_path, capsys):

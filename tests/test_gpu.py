@@ -1,4 +1,4 @@
-"""Kernels compiled for the card against the XLA path.  Marked `gpu`;
+"""The kernel compiled for the card against the XLA path.  Marked `gpu`;
 they skip unless JAX runs on a GPU:
 
     JAX_PLATFORMS=cuda python -m pytest -m gpu tests/
@@ -8,9 +8,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tests.test_pair_pallas import assert_stats_close, make_problem, \
-    xla_reference
-
 pytestmark = pytest.mark.gpu
 
 
@@ -19,15 +16,6 @@ def gpu():
     """Decided per test, at run time: never while the module imports."""
     if jax.devices()[0].platform != "gpu":
         pytest.skip("needs an NVIDIA GPU (JAX_PLATFORMS=cuda)")
-
-
-def test_pair_kernel_compiled(gpu):
-    from vbhem_tpu.ops import pair_estep_pallas as pp
-    args = make_problem(0, kb=300, kr=3, sb=3, sr=5)
-    got = jax.jit(lambda *a: pp.pair_bwd_fwd_fused_pallas(*a, 8))(*args)
-    assert_stats_close(got, xla_reference(args, 8))
-    auto = jax.make_jaxpr(lambda *a: pp.pair_estep_fused_auto(*a, 8))(*args)
-    assert "pallas_call" in str(auto)
 
 
 def test_fb_kernel_compiled(gpu):
